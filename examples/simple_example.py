@@ -11,11 +11,9 @@ Phase C: MockProver-equivalent on the outer circuit (H2A_FULL_MOCK=1;
          witness-level quad + fold equality is always checked)
 Phase D: the REAL outer proof (simple-example.rs:678-730): keygen, prove,
          and verify the aggregation circuit through the scaled native
-         prover — quotient on the TPU by default (Pallas NTT engine;
-         ~11-15 min at the default N=1 k=21 incl. keygen, ~19 min
-         host-only with H2A_DEVICE_QUOTIENT=0; H2A_OUTER_K overrides k,
-         which otherwise grows with N: 22 for N=2, 23 for N=4).
-         Gated by H2A_PHASE_D=1.
+         prover (quotient placement: prover_native._use_device_quotient;
+         H2A_OUTER_K overrides k, which otherwise grows with N: 22 for
+         N=2, 23 for N=4).  Gated by H2A_PHASE_D=1.
 
 Run: python examples/simple_example.py
      H2A_PHASE_D=1 python examples/simple_example.py   # + the outer proof
@@ -34,15 +32,15 @@ WITNESSES = [(2, 3), (4, 5), (6, 11), (12, 13), (1, 255), (3, 9), (8, 21), (17, 
 
 
 def main():
-    from halo2_aggregation_tpu.config import H2AConfig
-    from halo2_aggregation_tpu.models import aggregation_circuit as ac
-    from halo2_aggregation_tpu.models import simple_example as se
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.plonk.keygen import keygen
-    from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
-    from halo2_aggregation_tpu.plonk.prover import create_proof
-    from halo2_aggregation_tpu.plonk.verifier import verify_proof
-    from halo2_aggregation_tpu.utils.transcript import (
+    from halo2_aggregation.config import H2AConfig
+    from halo2_aggregation.models import aggregation_circuit as ac
+    from halo2_aggregation.models import simple_example as se
+    from halo2_aggregation.plonk import kzg
+    from halo2_aggregation.plonk.keygen import keygen
+    from halo2_aggregation.plonk.mock import mock_verify_fast
+    from halo2_aggregation.plonk.prover import create_proof
+    from halo2_aggregation.plonk.verifier import verify_proof
+    from halo2_aggregation.utils.transcript import (
         Blake2bRead,
         Blake2bWrite,
         PoseidonRead,
@@ -145,8 +143,8 @@ def main():
 
     # --- Phase D: the real outer proof (simple-example.rs:678-730) ---------
     if cfg.phase_d:
-        from halo2_aggregation_tpu.plonk.keygen import keygen_native
-        from halo2_aggregation_tpu.plonk.prover_native import (
+        from halo2_aggregation.plonk.keygen import keygen_native
+        from halo2_aggregation.plonk.prover_native import (
             create_proof_native,
         )
 
@@ -186,7 +184,7 @@ def main():
         if adir:
             import json
 
-            from halo2_aggregation_tpu.utils.artifacts import save_vk_npz
+            from halo2_aggregation.utils.artifacts import save_vk_npz
 
             os.makedirs(adir, exist_ok=True)
             tag = os.environ.get("H2A_ARTIFACT_TAG", "")

@@ -2,7 +2,7 @@
 // Fr polynomial engine (NTT / vector field ops / grand products) that the
 // scaled prover orchestrates from Python.
 //
-// The TPU owns the batched verification compute path; this library is the
+// The device owns the batched verification compute path; this library is the
 // native runtime around it (SRS generation, commit_lagrange, the k=23
 // outer-proof polynomial arithmetic, test oracles) — the role the
 // reference delegates to its Rust halo2 fork's multiexp/EvaluationDomain
@@ -12,14 +12,13 @@
 // __int128); points are Jacobian with mixed-affine bucket additions; the
 // MSM is windowed Pippenger with bucket suffix sums, threaded.  All Fr
 // vector entry points operate on (n, 4) uint64 arrays in Montgomery form
-// (numpy interchange; see halo2_aggregation_tpu/utils/native.py).
+// (numpy interchange; see halo2_aggregation/utils/native.py).
 //
 // Build: g++ -O3 -fopenmp -shared -fPIC -o libh2a_native.so h2a_native.cpp
 
 #include <algorithm>
 #include <cstdint>
 #include <cstring>
-#include <thread>
 #include <vector>
 #ifdef _OPENMP
 #include <omp.h>
@@ -340,7 +339,9 @@ void h2a_g1_msm(const u64 *points, const uint8_t *infs, const u64 *scalars,
   std::vector<AffM> pts(n);
   Fq r2;
   memcpy(r2.v, R2, 32);
-  size_t nthreads = n >= (1 << 15) ? 2 : 1;
+  // large MSMs split into one contiguous chunk per OpenMP thread
+  const size_t nthreads =
+      n >= (1 << 15) ? (size_t)std::max(1, omp_get_max_threads()) : 1;
 #pragma omp parallel for if (n >= (1 << 15))
   for (size_t i = 0; i < n; i++) {
     pts[i].inf = infs[i];
@@ -352,17 +353,14 @@ void h2a_g1_msm(const u64 *points, const uint8_t *infs, const u64 *scalars,
     mont_mul(pts[i].y, y, r2);
   }
 
-  Jac acc;
-  if (nthreads == 2) {
-    size_t half = n / 2;
-    Jac a, b;
-    std::thread t1([&] { msm_core(pts.data(), scalars, half, c, a); });
-    msm_core(pts.data() + half, scalars + half * 4, n - half, c, b);
-    t1.join();
-    jac_add(acc, a, b);
-  } else {
-    msm_core(pts.data(), scalars, n, c, acc);
+  std::vector<Jac> parts(nthreads);
+#pragma omp parallel for schedule(static, 1) num_threads((int)nthreads)
+  for (size_t t = 0; t < nthreads; t++) {
+    const size_t lo = n * t / nthreads, hi = n * (t + 1) / nthreads;
+    msm_core(pts.data() + lo, scalars + lo * 4, hi - lo, c, parts[t]);
   }
+  Jac acc = parts[0];
+  for (size_t t = 1; t < nthreads; t++) jac_add(acc, acc, parts[t]);
 
   // convert out of Montgomery (leave Jacobian; caller normalizes)
   Fq one;
@@ -937,7 +935,7 @@ void h2a_fr_dot(const u64 *a, const u64 *b, size_t n, u64 *out4) {
 //   e(w, [tau]_2) == e(zw + f + e, [1]_2)
 // (SURVEY.md §3.3; the reference runs it inside its Rust fork's
 // verify_proof, simple-example.rs:722-730).  Strategy mirrors the Python
-// oracle (halo2_aggregation_tpu/oracle/pairing.py): untwist G2 to E(Fq12)
+// oracle (halo2_aggregation/oracle/pairing.py): untwist G2 to E(Fq12)
 // and run a fully generic affine Miller loop + big-exponent final
 // exponentiation.  Generic is ~4x slower than sparse-line code but has no
 // room for coefficient errors — and at C++ speed the whole pairing is
@@ -1359,7 +1357,7 @@ int h2a_multi_pairing_check(size_t n, const u64 *g1, const uint8_t *g1_inf,
                             const u64 *g2) {
   Fq12 acc;
   fq12_set_one(acc);
-  // Miller loops are independent: 2 threads (matches msm threading)
+  // Miller loops are independent: one per OpenMP thread
   std::vector<Fq12> fs(n);
 #pragma omp parallel for schedule(static)
   for (size_t i = 0; i < n; i++) {

@@ -29,11 +29,11 @@ def build():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from halo2_aggregation_tpu.models import simple_example as se
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.plonk.keygen import keygen
-    from halo2_aggregation_tpu.plonk.prover import create_proof
-    from halo2_aggregation_tpu.plonk.verifier import parse_proof, verify_proof
+    from halo2_aggregation.models import simple_example as se
+    from halo2_aggregation.plonk import kzg
+    from halo2_aggregation.plonk.keygen import keygen
+    from halo2_aggregation.plonk.prover import create_proof
+    from halo2_aggregation.plonk.verifier import parse_proof, verify_proof
 
     k = 9
     params = kzg.setup(k)

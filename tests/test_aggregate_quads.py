@@ -2,12 +2,12 @@
 
 import pytest
 
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.plonk.verifier import verify_proof
-from halo2_aggregation_tpu.plonk.verifier_tpu import check_aggregate
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.plonk.verifier import verify_proof
+from halo2_aggregation.plonk.device_verifier import check_aggregate
 
 
 @pytest.mark.slow
@@ -29,7 +29,7 @@ def test_aggregate_pairing_fold():
     # folded: one pairing for both proofs
     assert check_aggregate(quads, params)
     # corrupt one quad -> the aggregate fails
-    from halo2_aggregation_tpu.oracle import curve as oc
+    from halo2_aggregation.oracle import curve as oc
 
     bad = list(quads)
     e, f, w, zw = bad[1]

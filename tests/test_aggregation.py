@@ -10,12 +10,12 @@ import os
 
 import pytest
 
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.models import aggregation_circuit as ac
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.plonk.verifier import verify_proof
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.models import aggregation_circuit as ac
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.plonk.verifier import verify_proof
 
 
 @pytest.fixture(scope="module")
@@ -53,19 +53,19 @@ def test_in_circuit_verifier_quad_matches(inner_proof):
     # most important correctness property of the in-circuit verifier);
     # H2A_FULL_MOCK=0 opts out for quick local iteration.
     if os.environ.get("H2A_FULL_MOCK", "1") == "1":
-        from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+        from halo2_aggregation.plonk.mock import mock_verify_fast
 
         failures = mock_verify_fast(cs, asg)
         assert failures == [], failures[:5]
 
 
 def test_fold_quads_host_matches_aggregate_quads(inner_proof):
-    """The circuit's host-side fold reference == verifier_tpu.aggregate_quads."""
-    from halo2_aggregation_tpu.models.aggregation_circuit import (
+    """The circuit's host-side fold reference == device_verifier.aggregate_quads."""
+    from halo2_aggregation.models.aggregation_circuit import (
         aggregate_lambda,
         fold_quads_host,
     )
-    from halo2_aggregation_tpu.plonk.verifier_tpu import aggregate_quads
+    from halo2_aggregation.plonk.device_verifier import aggregate_quads
 
     params, vk, proof, pub, inst_comm, efw = inner_proof
     quads = [tuple(efw), tuple(efw)]
@@ -81,11 +81,11 @@ def test_two_proof_aggregation_circuit(inner_proof):
     two quads match the native verifier and whose in-circuit fold matches
     aggregate_quads, with the documented instance layout.  Mock constraint
     check included under H2A_FULL_MOCK=1."""
-    from halo2_aggregation_tpu.models.aggregation_circuit import (
+    from halo2_aggregation.models.aggregation_circuit import (
         AggregationCircuit,
         fold_quads_host,
     )
-    from halo2_aggregation_tpu.plonk.prover import create_proof as _cp
+    from halo2_aggregation.plonk.prover import create_proof as _cp
 
     params, vk, proof, pub, inst_comm, efw = inner_proof
     # second, distinct inner proof (re-keygen: the fixture keeps only vk)
@@ -115,7 +115,7 @@ def test_two_proof_aggregation_circuit(inner_proof):
     print(f"2-proof circuit rows: {ctx.offset} @ k={outer_k}")
 
     if os.environ.get("H2A_FULL_MOCK", "1") == "1":
-        from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+        from halo2_aggregation.plonk.mock import mock_verify_fast
 
         failures = mock_verify_fast(cs, asg)
         assert failures == [], failures[:5]
@@ -127,13 +127,13 @@ def test_two_proof_constrained_lambda(inner_proof):
     is SQUEEZED by the in-circuit Poseidon sponge over the strict-reduced
     quad limbs (not witnessed); the gadget lambda equals the host
     aggregate_lambda_poseidon and the fold matches fold_quads_host."""
-    from halo2_aggregation_tpu.models.aggregation_circuit import (
+    from halo2_aggregation.models.aggregation_circuit import (
         AggregationCircuit,
         aggregate_lambda_poseidon,
         fold_quads_host,
     )
-    from halo2_aggregation_tpu.plonk.prover import create_proof as _cp
-    from halo2_aggregation_tpu.utils.transcript import (
+    from halo2_aggregation.plonk.prover import create_proof as _cp
+    from halo2_aggregation.utils.transcript import (
         PoseidonRead,
         PoseidonWrite,
     )
@@ -172,7 +172,7 @@ def test_two_proof_constrained_lambda(inner_proof):
     assert ctx.offset <= cs.usable_rows(1 << outer_k)
 
     if os.environ.get("H2A_FULL_MOCK", "1") == "1":
-        from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+        from halo2_aggregation.plonk.mock import mock_verify_fast
 
         failures = mock_verify_fast(cs, asg)
         assert failures == [], failures[:5]
@@ -188,11 +188,11 @@ def test_four_proof_aggregation_circuit(inner_proof):
     """ROADMAP round-3 item 4: N=4 inner proofs in one outer circuit —
     fits k=23 (the reference's SINGLE-proof k, simple-example.rs:663)
     thanks to the GLV + shared-doubling in-circuit MSMs."""
-    from halo2_aggregation_tpu.models.aggregation_circuit import (
+    from halo2_aggregation.models.aggregation_circuit import (
         AggregationCircuit,
         fold_quads_host,
     )
-    from halo2_aggregation_tpu.plonk.prover import create_proof as _cp
+    from halo2_aggregation.plonk.prover import create_proof as _cp
 
     params, vk, proof, pub, inst_comm, efw = inner_proof
     proofs, pubs, comms, efws = [proof], [pub], [inst_comm], [efw]
@@ -236,11 +236,11 @@ def test_eight_proof_aggregation_circuit(inner_proof):
     proofs in one outer circuit — quads and the lambda-fold must match
     the native verifier; row count recorded for the rows-vs-N table in
     docs/AGGREGATION_SCALING.md (the N=64 north-star extrapolation)."""
-    from halo2_aggregation_tpu.models.aggregation_circuit import (
+    from halo2_aggregation.models.aggregation_circuit import (
         AggregationCircuit,
         fold_quads_host,
     )
-    from halo2_aggregation_tpu.plonk.prover import create_proof as _cp
+    from halo2_aggregation.plonk.prover import create_proof as _cp
 
     params, vk, proof, pub, inst_comm, efw = inner_proof
     proofs, comms, efws = [proof], [inst_comm], [efw]
@@ -279,9 +279,9 @@ def test_constrained_fs_quad_matches(inner_proof):
     in-circuit — our soundness upgrade over transcript.rs:62-65): the
     gadget-derived challenges drive the full verifier and reproduce the
     native PoseidonRead verifier's quad bit-exactly."""
-    from halo2_aggregation_tpu.plonk.keygen import keygen as _kg
-    from halo2_aggregation_tpu.plonk.prover import create_proof as _cp
-    from halo2_aggregation_tpu.utils.transcript import (
+    from halo2_aggregation.plonk.keygen import keygen as _kg
+    from halo2_aggregation.plonk.prover import create_proof as _cp
+    from halo2_aggregation.utils.transcript import (
         PoseidonRead,
         PoseidonWrite,
     )
@@ -306,7 +306,7 @@ def test_constrained_fs_quad_matches(inner_proof):
     assert ctx.offset <= cs.usable_rows(1 << outer_k)
 
     if os.environ.get("H2A_FULL_MOCK", "1") == "1":
-        from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+        from halo2_aggregation.plonk.mock import mock_verify_fast
 
         failures = mock_verify_fast(cs, asg)
         assert failures == [], failures[:5]

@@ -2,8 +2,8 @@
 
 import pytest
 
-from halo2_aggregation_tpu import api
-from halo2_aggregation_tpu.models import simple_example as se
+from halo2_aggregation import api
+from halo2_aggregation.models import simple_example as se
 
 
 @pytest.mark.slow

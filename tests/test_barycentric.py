@@ -12,13 +12,10 @@ verifier.rs:438-510 / multiopen.rs:271-509).
 import numpy as np
 import pytest
 
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.plonk import engine
-from halo2_aggregation_tpu.utils import native
+from halo2_aggregation.fields import R
+from halo2_aggregation.plonk import engine
+from halo2_aggregation.utils import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native engine unavailable"
-)
 
 
 def _rand_col(rng, n):
@@ -87,9 +84,9 @@ def test_witness_evals_equal_divide_linear_ntt():
 
 
 def test_permute_lookup_u64_matches_spec():
-    from halo2_aggregation_tpu.plonk.prover import _permute_lookup
-    from halo2_aggregation_tpu.plonk.prover_native import _permute_lookup_u64
-    from halo2_aggregation_tpu.utils.u64 import u64_to_ints
+    from halo2_aggregation.plonk.prover import _permute_lookup
+    from halo2_aggregation.plonk.prover_native import _permute_lookup_u64
+    from halo2_aggregation.utils.u64 import u64_to_ints
 
     rng = np.random.default_rng(4)
     for _ in range(40):
@@ -110,7 +107,7 @@ def test_permute_lookup_u64_matches_spec():
 
 
 def test_permute_lookup_u64_missing_value_raises():
-    from halo2_aggregation_tpu.plonk.prover_native import _permute_lookup_u64
+    from halo2_aggregation.plonk.prover_native import _permute_lookup_u64
 
     bad = engine.col_from_ints([999] + [1] * 9)
     tbl = engine.col_from_ints([1] * 10)

@@ -1,12 +1,12 @@
-"""TPU G1 kernels vs the Python-int oracle."""
+"""Device G1 ops vs the Python-int oracle."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.ops import curve_ops as co
-from halo2_aggregation_tpu.ops.limbs import ints_to_limbs
+from halo2_aggregation.fields import R
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.ops import curve_ops as co
+from halo2_aggregation.ops.limbs import ints_to_limbs
 
 RNG = np.random.default_rng(0xCAFE)
 

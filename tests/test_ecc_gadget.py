@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from halo2_aggregation_tpu.aggregation.gadgets.ecc import EccChip
-from halo2_aggregation_tpu.aggregation.gadgets.integer import IntegerChip
-from halo2_aggregation_tpu.aggregation.gadgets.main_gate import Ctx, MainGate
-from halo2_aggregation_tpu.aggregation.gadgets.range_chip import RangeChip
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.plonk.circuit import Assignment, ConstraintSystem
-from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+from halo2_aggregation.aggregation.gadgets.ecc import EccChip
+from halo2_aggregation.aggregation.gadgets.integer import IntegerChip
+from halo2_aggregation.aggregation.gadgets.main_gate import Ctx, MainGate
+from halo2_aggregation.aggregation.gadgets.range_chip import RangeChip
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.plonk.circuit import Assignment, ConstraintSystem
+from halo2_aggregation.plonk.mock import mock_verify_fast
 
 RNG = np.random.default_rng(21)
 

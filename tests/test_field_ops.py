@@ -1,4 +1,4 @@
-"""TPU limb field arithmetic vs the Python-int oracle (SURVEY.md §4's
+"""Device limb field arithmetic vs the Python-int oracle (SURVEY.md §4's
 "field kernel unit tests against a trusted CPU oracle")."""
 
 import numpy as np
@@ -6,9 +6,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from halo2_aggregation_tpu.fields import MONT_R, Q, R
-from halo2_aggregation_tpu.ops import field_ops as fo
-from halo2_aggregation_tpu.ops.limbs import ints_to_limbs, limbs_to_int, limbs_to_ints
+from halo2_aggregation.fields import MONT_R, Q, R
+from halo2_aggregation.ops import field_ops as fo
+from halo2_aggregation.ops.limbs import ints_to_limbs, limbs_to_int, limbs_to_ints
 
 RNG = np.random.default_rng(0xBEEF)
 
@@ -98,10 +98,10 @@ def test_is_zero_eq_select():
 
 def test_mont_mul_big_chunked_matches(monkeypatch):
     """mont_mul_big's lax.map slab path (used by prover-scale NTT stages
-    and power series, where full-width conv temps OOM HBM) must be
+    and power series, where full-width conv temps exhaust device memory) must be
     bit-identical to plain mont_mul.  Threshold lowered so the chunked
     branch actually runs at test size."""
-    monkeypatch.setattr(fo, "_BIG_ROWS", 8)
+    monkeypatch.setattr(fo, "big_rows", lambda: 8)
     p = fo.FR.p
     a_int = rand_elems(32, p)
     b_int = rand_elems(32, p)

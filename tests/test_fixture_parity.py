@@ -13,11 +13,11 @@ import os
 
 import pytest
 
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.plonk.verifier import parse_proof, verify_proof
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.plonk.verifier import parse_proof, verify_proof
 
 FIXTURE = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "fixtures", "simple_example_k9.json"

@@ -3,18 +3,18 @@
 import numpy as np
 import pytest
 
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.aggregation.gadgets.main_gate import (
+from halo2_aggregation.fields import R
+from halo2_aggregation.aggregation.gadgets.main_gate import (
     Ctx,
     MainGate,
     Term,
 )
-from halo2_aggregation_tpu.aggregation.gadgets.range_chip import (
+from halo2_aggregation.aggregation.gadgets.range_chip import (
     LOOKUP_BITS,
     RangeChip,
 )
-from halo2_aggregation_tpu.plonk.circuit import Assignment, ConstraintSystem
-from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+from halo2_aggregation.plonk.circuit import Assignment, ConstraintSystem
+from halo2_aggregation.plonk.mock import mock_verify_fast
 
 RNG = np.random.default_rng(11)
 

@@ -4,11 +4,11 @@ import os
 
 import pytest
 
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.utils.jobs import StageLogger, aggregate_checkpointed
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.utils.jobs import StageLogger, aggregate_checkpointed
 
 
 @pytest.mark.slow
@@ -63,8 +63,8 @@ def test_run_tree_schedule_and_resume(tmp_path):
     tools/level2_prove.py on the chip: docs/level2_prove_run.log)."""
     import os
 
-    from halo2_aggregation_tpu.aggregation.tree import run_tree
-    from halo2_aggregation_tpu.utils.jobs import StageLogger
+    from halo2_aggregation.aggregation.tree import run_tree
+    from halo2_aggregation.utils.jobs import StageLogger
 
     def make_leaf(i):
         stem = str(tmp_path / f"leaf{i}")

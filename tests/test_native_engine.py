@@ -3,16 +3,13 @@
 import numpy as np
 import pytest
 
-from halo2_aggregation_tpu.fields import R, fr_omega
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.oracle import poly as opoly
-from halo2_aggregation_tpu.plonk import engine
-from halo2_aggregation_tpu.utils import native
-from halo2_aggregation_tpu.utils.u64 import ints_to_u64, u64_to_points
+from halo2_aggregation.fields import R, fr_omega
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.oracle import poly as opoly
+from halo2_aggregation.plonk import engine
+from halo2_aggregation.utils import native
+from halo2_aggregation.utils.u64 import ints_to_u64, u64_to_points
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native lib unavailable"
-)
 
 RNG = np.random.default_rng(7)
 
@@ -164,7 +161,7 @@ def test_g1_msm_threaded_matches_oracle():
 
 
 def test_native_miller_loop_matches_oracle():
-    from halo2_aggregation_tpu.oracle import pairing as op
+    from halo2_aggregation.oracle import pairing as op
 
     g1, g2 = oc.g1_generator(), oc.g2_generator()
     p = oc.g1_mul(g1, 12345)
@@ -193,7 +190,7 @@ def test_native_pairing_bilinearity():
 
 def test_native_final_exp_matches_oracle_check():
     """The full check agrees with the Python oracle on a random instance."""
-    from halo2_aggregation_tpu.oracle import pairing as op
+    from halo2_aggregation.oracle import pairing as op
 
     g1, g2 = oc.g1_generator(), oc.g2_generator()
     pairs = [

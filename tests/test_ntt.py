@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from halo2_aggregation_tpu.fields import R, fr_omega
-from halo2_aggregation_tpu.ops import field_ops as fo
-from halo2_aggregation_tpu.ops.ntt import Domain, poly_eval
+from halo2_aggregation.fields import R, fr_omega
+from halo2_aggregation.ops import field_ops as fo
+from halo2_aggregation.ops.ntt import Domain, poly_eval
 
 FR = fo.FR
 RNG = np.random.default_rng(0xD00D)

@@ -1,15 +1,15 @@
 """Oracle sanity: BN254 group law + pairing bilinearity.
 
-These pin the CPU oracle that every TPU kernel is diffed against, and that
+These pin the CPU oracle that every device op is diffed against, and that
 performs the deferred pairing check (SURVEY.md §3.3: the reference also
 defers `e(w,[tau]_2) == e(zw+f+e,[1]_2)` outside the circuit).
 """
 
 import pytest
 
-from halo2_aggregation_tpu.fields import Q, R, G1_GEN
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.oracle import pairing as op
+from halo2_aggregation.fields import Q, R, G1_GEN
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.oracle import pairing as op
 
 
 def test_g1_group_law():

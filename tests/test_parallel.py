@@ -6,11 +6,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.ops import curve_ops as co
-from halo2_aggregation_tpu.ops.limbs import ints_to_limbs
-from halo2_aggregation_tpu.parallel.mesh import make_mesh
-from halo2_aggregation_tpu.parallel.sharded_msm import sharded_msm
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.ops import curve_ops as co
+from halo2_aggregation.ops.limbs import ints_to_limbs
+from halo2_aggregation.parallel.mesh import make_mesh
+from halo2_aggregation.parallel.sharded_msm import sharded_msm
 
 
 def test_mesh_shapes():
@@ -38,10 +38,10 @@ def test_sharded_msm_matches_oracle():
 
 @pytest.fixture(scope="module")
 def proofs_k9():
-    from halo2_aggregation_tpu.models import simple_example as se
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.plonk.keygen import keygen
-    from halo2_aggregation_tpu.plonk.prover import create_proof
+    from halo2_aggregation.models import simple_example as se
+    from halo2_aggregation.plonk import kzg
+    from halo2_aggregation.plonk.keygen import keygen
+    from halo2_aggregation.plonk.prover import create_proof
 
     params = kzg.setup(9)
     circuit = se.MyCircuit(constant=7, a=2, b=3)
@@ -59,11 +59,11 @@ def proofs_k9():
 
 @pytest.mark.slow
 def test_sharded_field_algebra_matches_unsharded(proofs_k9):
-    from halo2_aggregation_tpu.parallel.batch_verify import (
+    from halo2_aggregation.parallel.batch_verify import (
         sharded_field_algebra,
     )
-    from halo2_aggregation_tpu.plonk.verifier import parse_proof
-    from halo2_aggregation_tpu.plonk.verifier_tpu import (
+    from halo2_aggregation.plonk.verifier import parse_proof
+    from halo2_aggregation.plonk.device_verifier import (
         batch_proofs,
         field_algebra,
     )
@@ -90,11 +90,11 @@ def test_shmap_verify_algebra_fast_matches_host(proofs_k9):
     """The shard_map formulation (driver dryrun path: explicit all_gather
     collectives over mp, no GSPMD pass) produces the host verifier's quad
     bit-exactly."""
-    from halo2_aggregation_tpu.parallel.batch_verify import (
+    from halo2_aggregation.parallel.batch_verify import (
         shmap_verify_algebra_fast,
     )
-    from halo2_aggregation_tpu.plonk.verifier import parse_proof, verify_proof
-    from halo2_aggregation_tpu.plonk.verifier_tpu import batch_proofs
+    from halo2_aggregation.plonk.verifier import parse_proof, verify_proof
+    from halo2_aggregation.plonk.device_verifier import batch_proofs
 
     params, vk, insts, proofs = proofs_k9
     mesh = make_mesh(8)
@@ -117,74 +117,9 @@ def test_shmap_verify_algebra_fast_matches_host(proofs_k9):
         assert got == tuple(efw), f"shmap quad mismatch at proof {i}"
 
 
-@pytest.mark.slow
-def test_sharded_verify_algebra_fast_matches_host(proofs_k9):
-    """The PRODUCTION path (fast_device) under a dp x mp mesh produces the
-    host verifier's quad bit-exactly."""
-    from halo2_aggregation_tpu.parallel.batch_verify import (
-        sharded_verify_algebra_fast,
-    )
-    from halo2_aggregation_tpu.plonk.verifier import parse_proof, verify_proof
-    from halo2_aggregation_tpu.plonk.verifier_tpu import batch_proofs
+def test_sharded_msm_program_is_built_once():
+    from halo2_aggregation.parallel.sharded_msm import _sharded_msm_step
 
-    params, vk, insts, proofs = proofs_k9
-    mesh = make_mesh(8)
-    B = mesh.shape["dp"]
-    parsed = [
-        parse_proof(
-            vk,
-            [params.commit_lagrange(col) for col in insts[i % 2]],
-            proofs[i % 2],
-        )
-        for i in range(B)
-    ]
-    batch = batch_proofs(vk, parsed)
-    out = sharded_verify_algebra_fast(mesh, vk, batch, parsed)
-    quads = {n: co.jac_to_ints(out[n]) for n in ("e", "f", "w", "zw")}
-    for i in range(B):
-        ok, efw = verify_proof(params, vk, insts[i % 2], proofs[i % 2])
-        assert ok
-        got = (quads["e"][i], quads["f"][i], quads["w"][i], quads["zw"][i])
-        assert got == tuple(efw), f"sharded quad mismatch at proof {i}"
-
-
-@pytest.mark.slow
-def test_gspmd_matches_shmap_tiny_mesh(proofs_k9):
-    """Cross-check the two mesh formulations AGAINST EACH OTHER at the
-    smallest nontrivial shape (B=2 over a dp=2, mp=1 mesh — an edge the
-    mesh-8 tests don't cover): if the hand-written shard_map `local`
-    program ever diverges from the GSPMD-partitioned `fast_device`, this
-    catches it (VERDICT r3 weak-6).  Quick-suite placement was measured
-    and rejected: each formulation costs 3-4 min COLD on this host (the
-    XLA scan-ladder compile dominates; docs/ROUND4_NOTES.md), which
-    would triple the ~2.5 min quick suite."""
-    from halo2_aggregation_tpu.parallel.batch_verify import (
-        sharded_verify_algebra_fast,
-        shmap_verify_algebra_fast,
-    )
-    from halo2_aggregation_tpu.plonk.verifier import parse_proof, verify_proof
-    from halo2_aggregation_tpu.plonk.verifier_tpu import batch_proofs
-
-    params, vk, insts, proofs = proofs_k9
-    mesh = make_mesh(2)
-    assert dict(mesh.shape) == {"dp": 2, "mp": 1}
-    B = 2
-    parsed = [
-        parse_proof(
-            vk,
-            [params.commit_lagrange(col) for col in insts[i % 2]],
-            proofs[i % 2],
-        )
-        for i in range(B)
-    ]
-    batch = batch_proofs(vk, parsed)
-    out1 = shmap_verify_algebra_fast(mesh, vk, batch, parsed)
-    out2 = sharded_verify_algebra_fast(mesh, vk, batch, parsed)
-    q1 = {n: co.jac_to_ints(out1[n]) for n in ("e", "f", "w", "zw")}
-    q2 = {n: co.jac_to_ints(out2[n]) for n in ("e", "f", "w", "zw")}
-    assert q1 == q2, "shard_map and GSPMD formulations diverged"
-    for i in range(B):
-        ok, efw = verify_proof(params, vk, insts[i % 2], proofs[i % 2])
-        assert ok
-        got = (q1["e"][i], q1["f"][i], q1["w"][i], q1["zw"][i])
-        assert got == tuple(efw), f"mesh quad != host verifier at proof {i}"
+    mesh = make_mesh(8, axes=("dp", "mp"))
+    assert _sharded_msm_step(mesh, "mp", 32) is _sharded_msm_step(mesh, "mp", 32)
+    assert _sharded_msm_step(mesh, "mp", 32) is not _sharded_msm_step(mesh, "mp", 64)

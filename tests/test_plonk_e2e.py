@@ -3,12 +3,12 @@ circuit — BASELINE config 1 ("verify one simple-example halo2 proof")."""
 
 import pytest
 
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.mock import mock_verify
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.plonk.verifier import verify_proof
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.mock import mock_verify
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.plonk.verifier import verify_proof
 
 K = 6  # smallest domain with room for the u8 table would be 9; see below
 

@@ -2,15 +2,15 @@
 
 import pytest
 
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.oracle.poseidon import PoseidonSponge, permute
-from halo2_aggregation_tpu.aggregation.gadgets.main_gate import Ctx, MainGate
-from halo2_aggregation_tpu.aggregation.gadgets.poseidon import (
+from halo2_aggregation.fields import R
+from halo2_aggregation.oracle.poseidon import PoseidonSponge, permute
+from halo2_aggregation.aggregation.gadgets.main_gate import Ctx, MainGate
+from halo2_aggregation.aggregation.gadgets.poseidon import (
     PoseidonGadget,
     PoseidonSpongeChip,
 )
-from halo2_aggregation_tpu.plonk.circuit import Assignment, ConstraintSystem
-from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+from halo2_aggregation.plonk.circuit import Assignment, ConstraintSystem
+from halo2_aggregation.plonk.mock import mock_verify_fast
 
 
 def _mk(k=13):

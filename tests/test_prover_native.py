@@ -9,20 +9,17 @@ coset quotient, folds) at once.
 import numpy as np
 import pytest
 
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.plonk.verifier import verify_proof
-from halo2_aggregation_tpu.utils import native
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.plonk.verifier import verify_proof
+from halo2_aggregation.utils import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native lib unavailable"
-)
 
 
 def test_native_prover_byte_parity():
-    from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
+    from halo2_aggregation.plonk.prover_native import create_proof_native
 
     k = 9
     params = kzg.setup(k)
@@ -46,7 +43,7 @@ def test_device_quotient_byte_parity(monkeypatch):
     pass (plonk/quotient_device.py); the proof bytes must be identical to
     the host C++ coset loop — this pins the device coset NTT, the packed
     leaf plumbing, and the LimbOps expression evaluation at once."""
-    from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
+    from halo2_aggregation.plonk.prover_native import create_proof_native
 
     k = 9
     params = kzg.setup(k)
@@ -67,9 +64,9 @@ def test_device_quotient_byte_parity(monkeypatch):
 
 
 def test_keygen_native_matches_keygen():
-    from halo2_aggregation_tpu.plonk.keygen import keygen_native
-    from halo2_aggregation_tpu.plonk.engine import col_to_ints
-    from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
+    from halo2_aggregation.plonk.keygen import keygen_native
+    from halo2_aggregation.plonk.engine import col_to_ints
+    from halo2_aggregation.plonk.prover_native import create_proof_native
 
     k = 9
     params = kzg.setup(k)

@@ -3,7 +3,7 @@
 create_proof_native and verified by the host verifier.
 
 This is the scaled dress rehearsal for Phase D (the k=23 outer
-aggregation proof, /root/reference/examples/simple-example.rs:678-730),
+aggregation proof, examples/simple-example.rs:678-730),
 exercising lookups, chunked permutation, quotient cosets, and multiopen
 at a size where the pure-int prover is already infeasible.
 """
@@ -11,23 +11,20 @@ at a size where the pure-int prover is already infeasible.
 import numpy as np
 import pytest
 
-from halo2_aggregation_tpu.aggregation.gadgets.main_gate import (
+from halo2_aggregation.aggregation.gadgets.main_gate import (
     Ctx,
     MainGate,
     Term,
 )
-from halo2_aggregation_tpu.aggregation.gadgets.range_chip import RangeChip
-from halo2_aggregation_tpu.fields import R
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.circuit import Assignment, ConstraintSystem
-from halo2_aggregation_tpu.plonk.keygen import keygen_native
-from halo2_aggregation_tpu.plonk.prover_native import create_proof_native
-from halo2_aggregation_tpu.plonk.verifier import verify_proof
-from halo2_aggregation_tpu.utils import native
+from halo2_aggregation.aggregation.gadgets.range_chip import RangeChip
+from halo2_aggregation.fields import R
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.circuit import Assignment, ConstraintSystem
+from halo2_aggregation.plonk.keygen import keygen_native
+from halo2_aggregation.plonk.prover_native import create_proof_native
+from halo2_aggregation.plonk.verifier import verify_proof
+from halo2_aggregation.utils import native
 
-pytestmark = pytest.mark.skipif(
-    not native.available(), reason="native lib unavailable"
-)
 
 
 def build_circuit(k, with_witness: bool, num_checks=512):

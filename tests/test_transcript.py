@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from halo2_aggregation_tpu.fields import Q, R
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.utils import serialization as ser
-from halo2_aggregation_tpu.utils.transcript import Blake2bRead, Blake2bWrite
+from halo2_aggregation.fields import Q, R
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.utils import serialization as ser
+from halo2_aggregation.utils.transcript import Blake2bRead, Blake2bWrite
 
 RNG = np.random.default_rng(7)
 

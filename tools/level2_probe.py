@@ -40,7 +40,7 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def load_artifacts(adir):
-    from halo2_aggregation_tpu.utils.artifacts import load_vk
+    from halo2_aggregation.utils.artifacts import load_vk
 
     stems = sorted(
         f[: -len(".proof")]
@@ -79,9 +79,9 @@ def main():
         )
     print(f"children distinct: {distinct}")
 
-    from halo2_aggregation_tpu.models import aggregation_circuit as ac
-    from halo2_aggregation_tpu.plonk import kzg
-    from halo2_aggregation_tpu.plonk.verifier import verify_proof
+    from halo2_aggregation.models import aggregation_circuit as ac
+    from halo2_aggregation.plonk import kzg
+    from halo2_aggregation.plonk.verifier import verify_proof
 
     # re-verify natively first: the artifacts must be valid outer proofs
     params_o = kzg.setup(arts[0][3]["k"])
@@ -124,7 +124,7 @@ def main():
     )
 
     if os.environ.get("H2A_FULL_MOCK", "0") == "1":
-        from halo2_aggregation_tpu.plonk.mock import mock_verify_fast
+        from halo2_aggregation.plonk.mock import mock_verify_fast
 
         t0 = time.time()
         failures = mock_verify_fast(cs2, asg2)

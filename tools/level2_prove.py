@@ -12,7 +12,7 @@ artifact.  The core lives in `aggregation/tree.py::prove_node` — the
 same function `run_tree` schedules for the full 63-prove tree.
 
 The reference's equivalent bar one level down is its single real outer
-proof (`/root/reference/examples/simple-example.rs:678-730`); it has no
+proof (`examples/simple-example.rs:678-730`); it has no
 recursion story at all (num_proofs pinned to 1, :654).
 
 Usage (~1h on this host: ~5 min synth x2, ~11 min keygen, ~35 min
@@ -33,7 +33,7 @@ def main():
     stem2 = sys.argv[2] if len(sys.argv) > 2 else "docs/artifacts/outer_n2_k22b"
     k2 = int(sys.argv[3]) if len(sys.argv) > 3 else 23
 
-    from halo2_aggregation_tpu.aggregation import tree
+    from halo2_aggregation.aggregation import tree
 
     p1 = open(f"{stem1}.proof", "rb").read()
     p2 = open(f"{stem2}.proof", "rb").read()

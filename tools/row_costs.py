@@ -8,10 +8,10 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from halo2_aggregation_tpu.models import aggregation_circuit as ac
-from halo2_aggregation_tpu.aggregation.gadgets.main_gate import Ctx
-from halo2_aggregation_tpu.oracle import curve as oc
-from halo2_aggregation_tpu.plonk.circuit import Assignment, ConstraintSystem
+from halo2_aggregation.models import aggregation_circuit as ac
+from halo2_aggregation.aggregation.gadgets.main_gate import Ctx
+from halo2_aggregation.oracle import curve as oc
+from halo2_aggregation.plonk.circuit import Assignment, ConstraintSystem
 
 
 def main():

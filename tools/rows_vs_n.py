@@ -18,16 +18,16 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 
-from halo2_aggregation_tpu.models import aggregation_circuit as ac
-from halo2_aggregation_tpu.models import simple_example as se
-from halo2_aggregation_tpu.models.aggregation_circuit import (
+from halo2_aggregation.models import aggregation_circuit as ac
+from halo2_aggregation.models import simple_example as se
+from halo2_aggregation.models.aggregation_circuit import (
     AggregationCircuit,
     fold_quads_host,
 )
-from halo2_aggregation_tpu.plonk import kzg
-from halo2_aggregation_tpu.plonk.keygen import keygen
-from halo2_aggregation_tpu.plonk.prover import create_proof
-from halo2_aggregation_tpu.plonk.verifier import verify_proof
+from halo2_aggregation.plonk import kzg
+from halo2_aggregation.plonk.keygen import keygen
+from halo2_aggregation.plonk.prover import create_proof
+from halo2_aggregation.plonk.verifier import verify_proof
 
 K_INNER = 9
 params = kzg.setup(K_INNER)
